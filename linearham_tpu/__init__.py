@@ -1,4 +1,4 @@
-"""linearham_tpu: a TPU-native Bayesian phylo-HMM engine for BCR analysis.
+"""linearham_tpu: a JAX Bayesian phylo-HMM engine for BCR analysis.
 
 A from-scratch JAX/XLA re-design of the capabilities of matsengrp/linearham
 (reference layout documented in SURVEY.md).  The host side compiles a clonal

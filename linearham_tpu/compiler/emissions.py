@@ -5,7 +5,7 @@ emits independently given the naive base, so a state's emission is the
 product over MSA rows of per-base probabilities; ambiguous (N) observed
 bases contribute nothing (reference semantics: src/SimpleHMM.cpp:95-271).
 
-Everything here is computed in log space: the TPU forward kernel takes
+Everything here is computed in log space: the device forward pass takes
 log-emissions and carries explicit scale accumulators, which replaces the
 reference's 2^256 block-scaling machinery.
 """

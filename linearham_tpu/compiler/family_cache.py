@@ -13,7 +13,8 @@ the partis YAML bytes, every gene YAML's bytes, the cluster index, the
 dtype, and the package source hash.  A warm load is one unpickle +
 one batched device_put (~0.3 s vs 2-13 s).
 
-Set LINEARHAM_FAMILY_CACHE=off to disable, or to a directory to relocate.
+The cache lives under ``utils.runtime.cache_root()``.  Set
+LINEARHAM_FAMILY_CACHE=off to disable, or to a directory to relocate.
 """
 
 from __future__ import annotations
@@ -27,12 +28,11 @@ from linearham_tpu.utils.fileio import atomic_write
 
 _FORMAT_VERSION = 1
 
-DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "linearham_tpu", "family_cache")
-
-
 def _cache_dir() -> Optional[str]:
-    d = os.environ.get("LINEARHAM_FAMILY_CACHE", DEFAULT_DIR)
+    from linearham_tpu.utils.runtime import cache_root
+
+    d = os.environ.get("LINEARHAM_FAMILY_CACHE") or os.path.join(
+        cache_root(), "family")
     return None if d == "off" else d
 
 

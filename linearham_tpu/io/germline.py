@@ -6,7 +6,7 @@ non-templated-insertion / N-padding machinery), the germline-position states
 ``<gene>_<i>``, and (for J genes) an ``insert_right_N`` state.
 
 This module parses those files into flat numpy parameter sets.  It is the
-TPU-native equivalent of the reference's Germline/NTInsertion/NPadding/
+equivalent of the reference's Germline/NTInsertion/NPadding/
 VDJGermline component family (src/Germline.cpp:20-115, src/NTInsertion.cpp:
 21-104, src/NPadding.cpp:22-109, src/VDJGermline.cpp:46-108); the output here
 is a plain dataclass of arrays intended to feed the numpy "HMM compiler"
@@ -21,8 +21,8 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
-import yaml
 
+from linearham_tpu.io import yamlite
 from linearham_tpu.utils.constants import EPS
 
 _GENE_FILE_RE = re.compile(r"^(IG([HKL])([VDJ]).*_star_.*)\.yaml$")
@@ -243,8 +243,7 @@ def _parse_npadding(root: dict, gg: GermlineGene) -> None:
 
 def load_gene(path: str, gtype: str) -> GermlineGene:
     """Load one germline gene YAML as a GermlineGene of the given type."""
-    with open(path) as fh:
-        root = yaml.safe_load(fh)
+    root = yamlite.load_file(path)
     gg = _parse_core(root)
     gg.gtype = gtype
     if gtype in ("D", "J"):

@@ -165,8 +165,7 @@ def build_schedule_batch_native(tb):
     lib = _load()
     if lib is None or not hasattr(lib, "lh_build_schedule"):
         return None
-    from linearham_tpu.io.schedule import (PruningSchedule, _fill_padding,
-                                           _round_slots)
+    from linearham_tpu.io.schedule import PruningSchedule, round_slots
 
     T, n_tips = tb.tip_perm.shape
     e_max = tb.edge_child.shape[1]
@@ -192,10 +191,8 @@ def build_schedule_batch_native(tb):
         raise ValueError(
             "native schedule build failed: " + err.value.decode())
 
-    n_slots = _round_slots(int(peak.max()))
-    _fill_padding(src, penc, length, n_slots)
     return PruningSchedule(src=src, penc=penc, length=length, root=root,
-                           n_slots=n_slots)
+                           n_slots=round_slots(int(peak.max())))
 
 
 def parse_trees_tsv_bytes(data: bytes):

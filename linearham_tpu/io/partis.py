@@ -14,7 +14,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
-import yaml
+
+from linearham_tpu.io import yamlite
 
 
 @dataclass
@@ -48,8 +49,7 @@ class ClusterData:
 
 def load_cluster(yaml_path: str, cluster_ind: int) -> ClusterData:
     """Load one clonal family from a partis output YAML file."""
-    with open(yaml_path) as fh:
-        root = yaml.safe_load(fh)
+    root = yamlite.load_file(yaml_path)
     try:
         locus = root["germline-info"]["locus"]
         event = root["events"][cluster_ind]

@@ -11,7 +11,7 @@ ancestral (internal-node) states per site:
      P(t * r_site)[parent state, .] x child partial; tips with observed
      bases collapse to them, ambiguous tips are resolved by sampling.
 
-This is the TPU-native replacement for the reference's per-site R loop
+This is the batched device replacement for the reference's per-site R loop
 (scripts/run_bootstrap_asr_ess.R:67-88, phylomd::asr.sim) -- here one
 batched call covers all sites x all bootstrap trees.
 """

@@ -2,7 +2,7 @@
 
 The state space is a chain of regions; the junction recursions are the hot
 loop: one row-vector x matrix product per junction site, which batches over
-the posterior tree ensemble into [T, S] x [S, S] matmuls (MXU-friendly).
+the posterior tree ensemble into [T, S] x [S, S] matmuls.
 
 Numerics: transitions stay in linear space (they are plain probabilities);
 emissions arrive in log space; the carried forward vector is kept
@@ -36,6 +36,12 @@ class ForwardCache(NamedTuple):
     jgerm_u: jnp.ndarray           # [T, Gj]
 
 
+def _mm(a, b):
+    # Full f32 products: on the GPU a default-precision f32 matmul may run
+    # in TF32 (~10 mantissa bits), which the log-likelihood cannot absorb.
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _normalize(f_log: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Split log-space values into (max-normalized linear, log-scale)."""
     m = jnp.max(f_log, axis=-1)
@@ -58,12 +64,12 @@ def _junction_scan(
         raise ValueError(
             "junction emission has zero site rows; the flexbounds collapse "
             "this junction window to nothing")
-    f0_log = jnp.log(germ_u @ germ_junction) + emis_log[:, 0]
+    f0_log = jnp.log(_mm(germ_u, germ_junction)) + emis_log[:, 0]
     u0, m0 = _normalize(f0_log)
 
     def step(carry, e_row):
         u, scale = carry
-        f_log = jnp.log(u @ junction) + e_row
+        f_log = jnp.log(_mm(u, junction)) + e_row
         u_next, m = _normalize(f_log)
         return (u_next, scale + m), u_next
 
@@ -82,7 +88,7 @@ def _germline_contract(
     static_log: jnp.ndarray,      # [G] padding-transition etc. log terms
     emis_log: jnp.ndarray,        # [T, G] germline (+padding) emissions
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    f_log = jnp.log(junction_u @ junction_germ) + static_log[None] + emis_log
+    f_log = jnp.log(_mm(junction_u, junction_germ)) + static_log[None] + emis_log
     u, m = _normalize(f_log)
     return u, junction_scale + m
 

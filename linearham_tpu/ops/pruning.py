@@ -5,16 +5,16 @@ GTR+Gamma, vectorized over sites and rate categories and vmapped over the
 posterior tree batch.  This replaces libpll's TraversalUpdate/LogLikelihood
 (reference boundary: src/PhyloHMM.cpp:220-238).
 
-TPU-native layout: partials are states-major [slots, R, 4, X] so the long
-site axis sits in the lane dimension (a trailing axis of 4 would pad
-4 -> 128 and waste 32x memory/bandwidth).  Transition matrices are never
+Layout: partials are states-major [slots, R, 4, X] so the long site axis
+is the minor (contiguous) one.  Transition matrices are never
 materialized per edge: each message is propagated through the GTR
 eigenbasis as three [4, X] contractions,
 
     msg = U @ (exp(lam * t * r) * (Uinv @ partial)),
 
-which keeps the MXU busy with [4, X] matmuls and stores only the per-edge
-eigenvalue scalings.
+which stores only the per-edge eigenvalue scalings.  This is the f64
+conformance path and the reference the GPU kernel (ops/pruning_kernel.py)
+is tested against.
 
 Encoding (see io.newick.TreeBatch): every tip has exactly one parent edge,
 so tip contributions are one batched einsum + segment-product; the

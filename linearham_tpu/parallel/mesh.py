@@ -7,24 +7,32 @@ data parallelism over two structural axes:
          on a leading axis (the repertoire axis; spans hosts in production)
   trees  posterior tree samples within each family
 
-Both are embarrassingly parallel; XLA's GSPMD partitioner handles the
-layout from NamedSharding annotations alone -- no hand-written collectives
-are needed in the hot path, and cross-device reductions (e.g. pooled
-naive-sequence tallies) are jnp ops over sharded arrays.  The reference has
-no distributed execution at all (SURVEY.md section 2g); this module is the
-TPU-native replacement for its one-scons-invocation-per-family process
-parallelism.
+Both are embarrassingly parallel.  XLA's partitioner lays out the step
+from NamedSharding annotations alone, with one exception: it cannot
+partition the pruning kernel's custom call, and would gather its inputs
+and run the whole batch on every device.  Pruning therefore runs under
+``shard_map`` over the (fam, trees) blocks, and the rest of the step
+(emissions, forward, FFBS) under the partitioner, which keeps the random
+draws identical to an unsharded run.  Cross-device reductions (pooled
+naive-sequence tallies, importance-weight ESS) are jnp ops over sharded
+arrays.  The reference has no distributed execution at all (SURVEY.md
+section 2g); this module replaces its one-scons-invocation-per-family
+process parallelism.
 """
 
 from __future__ import annotations
 
 from functools import partial
+from typing import Optional
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from linearham_tpu.models.phylo_hmm import phylo_step
+from linearham_tpu.models.phylo_hmm import (pack_step, site_logliks,
+                                            step_from_site_ll)
 
 
 def make_mesh(n_fam: int, n_trees: int, devices=None) -> Mesh:
@@ -37,44 +45,53 @@ def make_mesh(n_fam: int, n_trees: int, devices=None) -> Mesh:
     return Mesh(grid, ("fam", "trees"))
 
 
+def family_site_logliks(xmsa_rows, tree, eig, pi, rates, n_slots: int,
+                        mesh: Optional[Mesh] = None):
+    """Pruning for a stacked family batch: site log-likelihoods [F, T, X].
+
+    With a mesh, each device prunes its own (fam, trees) block.
+    """
+    prune = jax.vmap(partial(site_logliks, n_slots=n_slots))
+    if mesh is not None:
+        fam, fam_trees = P("fam"), P("fam", "trees")
+        prune = shard_map(
+            prune, mesh=mesh,
+            in_specs=(fam, fam_trees, fam_trees, fam_trees, fam_trees),
+            out_specs=fam_trees)
+    return prune(xmsa_rows, tree, eig, pi, rates)
+
+
 def multi_family_step(trans, consts, xmsa_rows, naive_bases, tree, eig, pi,
-                      rates, keys, heavy: bool, n_slots: int):
-    """vmap of the fused pipeline step over a stacked family axis.
+                      rates, keys, heavy: bool, n_slots: int,
+                      mesh: Optional[Mesh] = None):
+    """The fused pipeline step over a stacked family axis.
 
     Every array carries a leading [F] axis; tree/GTR arrays carry [F, T].
     Returns (loglik [F, T], sampled paths with [F, T] leading axes).
     """
+    site_ll = family_site_logliks(xmsa_rows, tree, eig, pi, rates, n_slots,
+                                  mesh)
 
-    def one_family(trans_f, consts_f, rows_f, naive_f, tree_f, eig_f, pi_f,
-                   rates_f, key_f):
-        loglik, _, path = phylo_step(
-            trans_f, consts_f, rows_f, naive_f, tree_f, eig_f, pi_f,
-            rates_f, key_f, heavy=heavy, n_slots=n_slots,
-        )
+    def one_family(trans_f, consts_f, naive_f, site_ll_f, pi_f, key_f):
+        loglik, _, path = step_from_site_ll(
+            trans_f, consts_f, naive_f, site_ll_f, pi_f, key_f, heavy)
         return loglik, path
 
-    return jax.vmap(one_family)(
-        trans, consts, xmsa_rows, naive_bases, tree, eig, pi, rates, keys)
+    return jax.vmap(one_family)(trans, consts, naive_bases, site_ll, pi,
+                                keys)
 
 
 def multi_family_step_packed(trans, consts, xmsa_rows, naive_bases, tree,
                              eig, pi, rates, keys, heavy: bool,
-                             n_slots: int):
-    """multi_family_step with results packed into ONE int16 [F, T, C]
-    array (loglik bit-cast into the leading column(s)) — a single host
-    read per bucket instead of six; see models.phylo_hmm.phylo_step_packed
-    for the layout and unpack_path for the inverse."""
-    from linearham_tpu.models.phylo_hmm import phylo_step_packed
-
-    def one_family(trans_f, consts_f, rows_f, naive_f, tree_f, eig_f, pi_f,
-                   rates_f, key_f):
-        return phylo_step_packed(
-            trans_f, consts_f, rows_f, naive_f, tree_f, eig_f, pi_f,
-            rates_f, key_f, heavy=heavy, n_slots=n_slots,
-        )
-
-    return jax.vmap(one_family)(
-        trans, consts, xmsa_rows, naive_bases, tree, eig, pi, rates, keys)
+                             n_slots: int, mesh: Optional[Mesh] = None):
+    """multi_family_step with results packed into ONE int [F, T, C] array
+    (loglik bit-cast into the leading column(s)) — a single host read per
+    bucket; see models.phylo_hmm.pack_step for the layout and unpack_path
+    for the inverse."""
+    loglik, path = multi_family_step(
+        trans, consts, xmsa_rows, naive_bases, tree, eig, pi, rates, keys,
+        heavy=heavy, n_slots=n_slots, mesh=mesh)
+    return jax.vmap(partial(pack_step, heavy=heavy))(trans, loglik, path)
 
 
 def shard_family_batch(mesh: Mesh, trans, consts, xmsa_rows, naive_bases,
@@ -97,9 +114,11 @@ def shard_family_batch(mesh: Mesh, trans, consts, xmsa_rows, naive_bases,
 
 
 def sharded_pipeline(mesh: Mesh, heavy: bool, n_slots: int):
-    """jit multi_family_step with (fam, trees)-sharded outputs."""
+    """jit multi_family_step on ``mesh`` with (fam, trees)-sharded
+    outputs; pruning runs per device under shard_map."""
     out_spec = NamedSharding(mesh, P("fam", "trees"))
-    step = partial(multi_family_step, heavy=heavy, n_slots=n_slots)
+    step = partial(multi_family_step, heavy=heavy, n_slots=n_slots,
+                   mesh=mesh)
     return jax.jit(step, out_shardings=(out_spec, None))
 
 
@@ -108,8 +127,8 @@ def pooled_repertoire_summary(mesh: Mesh, loglik, rb_loglik) -> dict:
 
     The per-step hot path is embarrassingly parallel by design — zero
     collectives — but repertoire-level aggregates need one cross-device
-    reduction, and doing it on the mesh (psum/pmax over ICI inside
-    shard_map) avoids gathering the full [F, T] result arrays to one
+    reduction, and doing it on the mesh (psum/pmax inside shard_map)
+    avoids gathering the full [F, T] result arrays to one
     host.  Computes, over (fam, trees)-sharded log-likelihoods:
 
       * total tree count,
@@ -120,13 +139,8 @@ def pooled_repertoire_summary(mesh: Mesh, loglik, rb_loglik) -> dict:
 
     The tree axis is sharded too, so the per-family softmax runs as a
     distributed logsumexp: pmax for the stabilizing max, psum for the
-    exp sums — the textbook TPU reduction pattern riding ICI.
+    exp sums.
     """
-    try:
-        from jax import shard_map          # jax >= 0.8
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-
     spec = P("fam", "trees")
 
     @partial(shard_map, mesh=mesh, in_specs=(spec, spec),

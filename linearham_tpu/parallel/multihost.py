@@ -7,8 +7,7 @@ list, and one global ``(fam, trees)`` mesh shards the stacked buckets so
 that each family lands on one chip group.  The model is KB-scale and
 replicated; there is no parameter sharding and no communication in the hot
 path — the only collectives are final per-family scalar/tally reductions,
-which XLA inserts from the NamedSharding annotations and routes over ICI
-within a slice (DCN across slices).
+which XLA inserts from the NamedSharding annotations.
 
 Scaling is therefore embarrassingly parallel by construction: the ≥80%
 1-chip→2-host efficiency target reduces to keeping per-chip batches full
@@ -23,7 +22,7 @@ device_put, results stay host-local::
     from linearham_tpu.parallel import multihost
     from linearham_tpu.parallel.mesh import make_mesh
 
-    multihost.initialize()                  # env-driven (TPU pods: no args)
+    multihost.initialize("localhost:1234", num_processes=2, process_id=0)
     mine = multihost.process_slice(all_family_paths)
     mesh = make_mesh(len(jax.local_devices()), 1,
                      devices=jax.local_devices())
@@ -51,8 +50,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Start jax's distributed runtime (no-op if already initialized).
 
-    On TPU pods all arguments come from the environment; pass them
-    explicitly only for manual CPU/GPU cluster bring-up.
+    On a GPU or CPU cluster nothing in the environment describes the
+    cluster: pass the coordinator address (``host:port``), the process
+    count and this process's id.
     """
     try:
         jax.distributed.initialize(

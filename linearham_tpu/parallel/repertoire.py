@@ -9,7 +9,7 @@ bucket maximum with *dead* elements:
   genes     -inf entry log-probability
   xmsa cols gathered by nobody
   tips      ambiguous-N states parented to the sink slot (contribute 1)
-  edges     sink->sink no-ops
+  edges     sink->sink no-ops (schedule encoding: entries with penc -1)
 
 One stacked [F, ...] batch then runs through the vmapped fused step and
 shards over a (fam, trees) mesh (see parallel.mesh).  The reference's
@@ -27,8 +27,8 @@ import numpy as np
 
 from linearham_tpu.io.trees_tsv import TreeSamples
 from linearham_tpu.models.decode import Annotation
-from linearham_tpu.models.phylo_hmm import PhyloHMM
-from linearham_tpu.models.phylo_hmm import unpack_path
+from linearham_tpu.models.phylo_hmm import (PhyloHMM, narrow_index,
+                                            unpack_path)
 from linearham_tpu.parallel.mesh import (multi_family_step_packed,
                                          shard_family_batch)
 from linearham_tpu.pipeline.run import prepare_ensemble
@@ -39,7 +39,7 @@ NEG = -1e30  # finite stand-in for -inf in padded log tensors
 # shapes reuse the compiled trace (a per-call jax.jit would retrace).
 # The packed variant drains each bucket in ONE host read.
 _multi_family_step_jit = jax.jit(
-    multi_family_step_packed, static_argnames=("heavy", "n_slots"))
+    multi_family_step_packed, static_argnames=("heavy", "n_slots", "mesh"))
 
 
 @dataclass
@@ -113,8 +113,7 @@ def _stack_bucket(tasks: List[FamilyTask], num_rates: int, dtype):
     def gather(fn):
         return [fn(h) for h in hmms]
 
-    # Use the families' HOST copies: pulling h._trans/_consts back from a
-    # remote device would pay a round trip per array per family.
+    # The families' HOST copies: no device round trip per array.
     trans_list = [dict(h._trans_np) for h in hmms]
     consts_list = [h._consts_np for h in hmms]
     xmsa_list = gather(lambda h: h._xmsa_rows_np)
@@ -189,29 +188,20 @@ def _stack_bucket(tasks: List[FamilyTask], num_rates: int, dtype):
 
     if "sched_src" in preps[0][0]:
         # Slot-reuse schedule encoding (io/schedule.py): pad every
-        # family's entry list to the bucket maximum and re-point each
-        # family's own padding entries (stores into ITS sink) at the
-        # bucket-wide sink — real entries never reference a sink slot,
-        # so the penc match is unambiguous.
+        # family's entry list to the bucket maximum with skipped (-1)
+        # entries.
         N = maxdim([p[0]["sched_src"] for p in preps], 1)
-        srcs, pencs, lens = [], [], []
-        for p in preps:
-            T_f = p[0]["sched_src"].shape[0]
-            own_pad = (p[3] - 1) * 4 + 2 + 1
-            src = _pad(p[0]["sched_src"], (T_f, N), 0)
-            penc = _pad(np.asarray(p[0]["sched_penc"], np.int32),
-                        (T_f, N), -1)
-            penc[penc == own_pad] = -1
-            penc[penc < 0] = sink * 4 + 2 + 1
-            srcs.append(src)
-            pencs.append(penc)
-            lens.append(_pad(p[0]["sched_len"], (T_f, N), 0.0))
         tree = {
-            "sched_src": np.stack(srcs).astype(np.int16),
-            "sched_penc": np.stack(pencs).astype(np.int16),
-            "sched_len": np.stack(lens),
-            "sched_root": np.stack(
-                [p[0]["sched_root"] for p in preps]).astype(np.int16),
+            "sched_src": narrow_index(np.stack([
+                _pad(np.asarray(p[0]["sched_src"]),
+                     (T_max, N), 0) for p in preps])),
+            "sched_penc": narrow_index(np.stack([
+                _pad(np.asarray(p[0]["sched_penc"], np.int32),
+                     (T_max, N), -1) for p in preps])),
+            "sched_len": np.stack([
+                _pad(p[0]["sched_len"], (T_max, N), 0.0) for p in preps]),
+            "sched_root": narrow_index(np.stack(
+                [p[0]["sched_root"] for p in preps])),
         }
     else:
         n_tips = maxdim([p[0]["tip_perm"] for p in preps], 1)
@@ -273,8 +263,8 @@ def run_repertoire(
 
     from linearham_tpu.utils.profiling import StageTimer
 
-    # Overlap the remote backend dial + first-put transfer warmup with
-    # host-side bucket stacking (same rationale as run_pipeline).
+    # Initialize the backend and warm the transfer path on a side thread,
+    # overlapping the host-side bucket stacking (as run_pipeline does).
     def _dial():
         try:
             jax.block_until_ready(jax.device_put(np.zeros(8, np.float32)))
@@ -288,9 +278,9 @@ def run_repertoire(
         buckets.setdefault(_bucket_key(t.hmm), []).append(i)
 
     results: List[Optional[FamilyResult]] = [None] * len(tasks)
-    key = None   # created AFTER the first host-side stack: PRNGKey blocks
-    for bkey, idxs in buckets.items():   # on backend init, which the side
-        # thread above is still dialing while the stack runs.
+    key = None   # created after the first host-side stack: PRNGKey blocks
+    for bkey, idxs in buckets.items():   # on backend initialization,
+        # which the side thread above is still running.
         heavy = bkey[0]
         group = [tasks[i] for i in idxs]
         with timer.stage("stack_families"):
@@ -341,10 +331,6 @@ def run_repertoire(
             if mesh is not None:
                 args = shard_family_batch(mesh, *host_args, keys)
             else:
-                # ONE packed put for the whole stacked bucket: per-leaf
-                # puts each pay a fixed round trip on remote relays
-                # (~30 leaves measured ~1.2s of pure put overhead for
-                # ~8MB; utils/wire.py ships one buffer per dtype).
                 from linearham_tpu.utils.wire import device_put_packed
 
                 args = (*device_put_packed(host_args), keys)
@@ -354,7 +340,7 @@ def run_repertoire(
 
             packed = np.asarray(cached_call(
                 _multi_family_step_jit, "multi_family_step",
-                dict(heavy=heavy, n_slots=n_slots),
+                dict(heavy=heavy, n_slots=n_slots, mesh=mesh),
                 *args))                                # ONE host read
 
         f64 = dtype == jnp.float64

@@ -22,8 +22,8 @@ import csv
 import math
 from typing import Dict, List, Optional
 
-import yaml
 
+from linearham_tpu.io import yamlite
 from linearham_tpu.io.annotated_newick import parse_annotated_newick
 
 ANNOTATION_KEYS = [
@@ -197,8 +197,7 @@ def write_lh_annotations(
             uniq.append({"row": row, "count": 1, "trees": [tree]})
 
     n = len(rows)
-    with open(partis_yaml_path) as fh:
-        partis_root = yaml.safe_load(fh)
+    partis_root = yamlite.load_file(partis_yaml_path)
     base_event = partis_root["events"][0]
 
     member_seqs = []
@@ -220,6 +219,8 @@ def write_lh_annotations(
         out.append(ann)
 
     def write(path: str, events: List[dict]) -> None:
+        import yaml
+
         doc = {
             "germline-info": partis_root.get("germline-info", {}),
             "events": events,

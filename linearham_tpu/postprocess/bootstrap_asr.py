@@ -1,6 +1,6 @@
 """Importance-weighted bootstrap + ESS + ancestral sequence reconstruction.
 
-The TPU-native replacement for the reference's R post-processing stage
+The batched device replacement for the reference's R post-processing stage
 (scripts/run_bootstrap_asr_ess.R): drop burn-in, subsample tree samples
 without replacement with probabilities softmax(LogWeight), report
 weight-adjusted effective sample sizes, and for each subsampled tree draw

@@ -9,12 +9,12 @@ the partis YAML structure instead of partis' own libraries.
 
 from __future__ import annotations
 
+import json
 import warnings
 from collections import OrderedDict
 from typing import Optional
 
-import yaml
-
+from linearham_tpu.io import yamlite
 from linearham_tpu.utils.seqs import write_fasta
 
 
@@ -65,8 +65,7 @@ def parse_cluster(
     indel_reversed_seqs: bool = False,
 ) -> dict:
     """Write the cluster YAML + FASTA; returns the selected event."""
-    with open(partis_yaml_path) as fh:
-        root = yaml.safe_load(fh)
+    root = yamlite.load_file(partis_yaml_path)
     event = _select_event(root, partition_index, cluster_index,
                           seed_unique_id)
 
@@ -87,10 +86,9 @@ def parse_cluster(
             seqs[str(uid)] = event["input_seqs"][i]
 
     with open(yaml_output_path, "w") as fh:
-        yaml.safe_dump(
-            {"germline-info": root.get("germline-info", {}),
-             "events": [event]},
-            fh, sort_keys=False, width=10 ** 6)
+        # JSON is YAML, and it is the style partis itself writes.
+        json.dump({"germline-info": root.get("germline-info", {}),
+                   "events": [event]}, fh, indent=1)
     write_fasta(seqs, fasta_output_path)
     return event
 

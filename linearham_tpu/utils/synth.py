@@ -89,6 +89,13 @@ class SyntheticFamily:
     n_sites: int
 
 
+# The reference CI's family depth (test.sh:2-3, shaped like Liao CH103):
+# 312 sequences, 369 sites, 1009 xMSA columns.
+CI_DEPTH_FAMILY = dict(n_seqs=312, n_v=4, n_d=5, n_j=3, v_len=296, d_len=26,
+                       j_len=52, mutation_rate=0.04, ambig_rate=0.005,
+                       seed=19)
+
+
 def make_family(
     n_seqs: int = 10,
     n_v: int = 3,
@@ -233,7 +240,7 @@ def write_partis_yaml(
     ``unmutated_ids``: member indices forced identical to the naive
     sequence (a common real-data case partis emits).
     """
-    import yaml
+    import json
 
     rng = np.random.default_rng(seed)
     naive = _codes_to_str(family.naive_seq_codes)
@@ -294,7 +301,7 @@ def write_partis_yaml(
         "events": [event],
     }
     with open(path, "w") as fh:
-        yaml.safe_dump(root, fh, sort_keys=False, width=10 ** 6)
+        json.dump(root, fh, indent=1)   # JSON is YAML; partis writes it so
 
 
 def write_trees_tsv(samples: TreeSamples, path: str,

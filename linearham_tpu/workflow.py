@@ -467,8 +467,8 @@ def main(argv=None) -> int:
                         "probability thresholds")
     p.add_argument("--precision", choices=["f32", "f64", "auto"],
                    default="auto",
-                   help="pipeline compute precision (auto = f32 on TPU, "
-                        "f64 elsewhere)")
+                   help="pipeline compute precision (auto = f32 on the "
+                        "GPU, f64 on the CPU)")
     args = p.parse_args(argv)
 
     from linearham_tpu.utils.runtime import enable_persistent_cache

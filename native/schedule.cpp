@@ -1,9 +1,8 @@
 // Slot-reuse pruning schedule builder (Sethi-Ullman register allocation
 // on trees) — the native fast path behind linearham_tpu/io/schedule.py
-// (see that module's docstring for the entry format and why: the Pallas
-// kernel's VMEM partials scratch shrinks from one-slot-per-internal-node
-// to the ~log2(n_tips) peak of live partials, which is what lets the
-// site-block width cover a deep family's whole xMSA in one pass).
+// (see that module's docstring for the entry format and why: the GPU
+// kernel's shared-memory slot file shrinks from one-slot-per-internal-node
+// to the ~log2(n_tips) peak of live partials).
 //
 // Per tree this is a linear-time DFS; a 10k-tree ensemble of 313-tip
 // trees (~9.4M node visits) builds in ~100 ms, where the pure-Python

@@ -193,3 +193,93 @@ def test_repertoire_e2e_tsv_and_timings(tasks, tmp_path):
         # Light chain uses the VJInsertion column variant.
         if not task.hmm.space.is_heavy:
             assert "VJInsertion" in header and "DGene" not in header
+
+
+def _stacked_family_batch(encoding, n_fam=4, n_trees=4):
+    """Host-stacked fused-step inputs for n_fam same-shape synthetic
+    families, their trees in the ``encoding`` ('jnp' TreeBatch arrays or
+    'kernel' slot-reuse schedules)."""
+    import jax.numpy as jnp
+
+    from linearham_tpu.io.newick import batch_trees, parse_newick
+    from linearham_tpu.io.schedule import build_schedule
+    from linearham_tpu.ops.gtr import gamma_category_rates_batch, gtr_eigen
+    from linearham_tpu.utils.synth import make_family, make_tree_samples
+
+    fam = make_family(n_seqs=5, n_v=2, n_d=2, n_j=2, v_len=40, d_len=16,
+                      j_len=14, seed=4)
+    hmm = PhyloHMM.from_parts(
+        fam.locus, fam.flexbounds, fam.relpos, fam.genes, fam.msa,
+        fam.unique_ids, fam.n_sites, seed=0, dtype=jnp.float32)
+    per_family = []
+    for f in range(n_fam):
+        s = make_tree_samples(fam, n_trees, seed=f)
+        tb = batch_trees([parse_newick(nw) for nw in s.newicks],
+                         hmm.xmsa.labels)
+        if encoding == "kernel":
+            sc = build_schedule(tb)
+            tree = {"sched_src": sc.src, "sched_penc": sc.penc,
+                    "sched_len": sc.length, "sched_root": sc.root}
+            n_slots = sc.n_slots
+        else:
+            tree = {"tip_perm": tb.tip_perm, "tip_parent": tb.tip_parent,
+                    "tip_length": tb.tip_length,
+                    "edge_child": tb.edge_child,
+                    "edge_parent": tb.edge_parent,
+                    "edge_length": tb.edge_length,
+                    "root_slot": tb.root_slot}
+            n_slots = tb.n_slots
+        f32 = lambda a: np.asarray(a, np.float32)           # noqa: E731
+        tree = {k: (f32(v) if np.issubdtype(np.asarray(v).dtype,
+                                            np.floating) else np.asarray(v))
+                for k, v in tree.items()}
+        per_family.append((
+            hmm._trans_np, hmm._consts_np, hmm._xmsa_rows_np,
+            hmm._naive_bases_np, tree,
+            jax.tree.map(f32, gtr_eigen(s.er, s.pi)), f32(s.pi),
+            f32(gamma_category_rates_batch(s.alpha, 4)),
+            np.asarray(jax.random.PRNGKey(f))))
+    trans = {k: np.asarray(v, np.float32) if np.issubdtype(
+        np.asarray(v).dtype, np.floating) else v
+        for k, v in per_family[0][0].items()}
+    per_family = [(trans,) + p[1:] for p in per_family]
+    stacked = jax.tree.map(lambda *xs: np.stack(xs), *per_family)
+    return stacked, n_slots
+
+
+@pytest.mark.parametrize("encoding", ["jnp", "kernel"])
+def test_sharded_pipeline_matches_unsharded(encoding):
+    """sharded_pipeline on a (fam=2, trees=2) mesh of virtual CPU devices
+    prunes under shard_map (the kernel's custom call cannot be
+    partitioned) and reproduces the unsharded step: log-likelihoods and
+    sampled paths."""
+    from functools import partial
+
+    from linearham_tpu.parallel.mesh import (multi_family_step,
+                                             shard_family_batch,
+                                             sharded_pipeline)
+
+    if len(jax.devices()) < 4:
+        pytest.skip("needs 4 virtual devices")
+    stacked, n_slots = _stacked_family_batch(encoding)
+    mesh = make_mesh(2, 2)
+
+    jaxpr = jax.make_jaxpr(partial(
+        multi_family_step, heavy=True, n_slots=n_slots, mesh=mesh))(
+        *stacked)
+    prims = [e.primitive.name for e in jaxpr.jaxpr.eqns]
+    assert "shard_map" in prims
+    shard = next(e for e in jaxpr.jaxpr.eqns
+                 if e.primitive.name == "shard_map")
+    inner = [e.primitive.name for e in shard.params["jaxpr"].eqns]
+    assert ("ffi_call" in inner) == (encoding == "kernel")
+
+    ll, path = sharded_pipeline(mesh, heavy=True, n_slots=n_slots)(
+        *shard_family_batch(mesh, *stacked))
+    ll_ref, path_ref = jax.jit(partial(
+        multi_family_step, heavy=True, n_slots=n_slots))(*stacked)
+    assert ll.shape == (4, 4) and np.isfinite(np.asarray(ll)).all()
+    np.testing.assert_allclose(np.asarray(ll), np.asarray(ll_ref),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(path.vd_idx),
+                                  np.asarray(path_ref.vd_idx))
